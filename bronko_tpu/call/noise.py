@@ -17,7 +17,7 @@ Replicated quirks required for output parity:
 
 The per-position frequency prep is vectorized; the window scan itself is an
 inherently sequential O(L) recurrence over tiny state, so it runs on host in
-f64 (TPU f32 would break parity; see docs/design.md).
+f64 (f32 would break parity; see docs/design.md).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Reimplements call_variants (call.rs:969-1150) as one fused (L, 4) tensor
 pass in float64 on host — the arrays are genome-length (kb..Mb), so this is
 microseconds of work, and f64 keeps threshold decisions bit-compatible with
-the reference (TPU f32 would not).
+the reference (f32 would not).
 
 Filter cascade per (position, alt base):
   1. GATK-style strand odds ratio with +1 pseudocounts; reject > max

@@ -1,7 +1,7 @@
 """Command-line interface: `bronko-tpu build` / `bronko-tpu call`.
 
 Flag names and defaults mirror the reference CLI (cli.rs:29-166) for drop-in
-compatibility; TPU-specific knobs (batch size, chunking) are additive.
+compatibility; device knobs (batch size, chunking, mesh) are additive.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="bronko-tpu",
-        description="TPU-native ultra-rapid mapping-free viral variant calling",
+        description="Ultra-rapid mapping-free viral variant calling on an accelerator",
     )
     # clap's #[command(version)] surface (cli.rs:16)
     ap.add_argument("-V", "--version", action="version",
@@ -104,11 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=consts.DEFAULT_KEEP_KMER_INFO,
                    help="Keep kmer count information")
     c.add_argument("--batch-size", type=int, default=1 << 18,
-                   help="Device mapping batch size (TPU)")
+                   help="Device mapping batch size (unique k-mers per batch)")
     c.add_argument("--chunk-reads", type=int, default=1 << 18,
                    help="Reads per device-counter chunk")
     c.add_argument("--counter", choices=("auto", "host", "device"), default="auto",
-                   help="K-mer counter: host C++ hash, device TPU sort, or auto")
+                   help="K-mer counter: host C++ hash, device sort, or auto (host "
+                        "when the native library loads)")
     c.add_argument("--mesh", default=None,
                    help="Device mesh 'DxG' (data-parallel x genome shards), e.g. 4x2")
     c.add_argument("--shard-samples", dest="shard_samples", action="store_true",
@@ -120,11 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a jax.profiler trace of the run to this directory")
     c.add_argument("--device-build", dest="device_build", default="auto",
                    choices=("auto", "on", "off"),
-                   help="Build the device index on-chip from genome codes "
-                        "(auto: on for TPU backends; off under --mesh)")
+                   help="Build the device index on the device from genome "
+                        "codes (auto: on for every backend but the CPU; off "
+                        "under --mesh)")
     c.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator address host:port "
-                        "(multi-host; omit on TPU pods for auto-detection)")
+                        "(multi-process; omit under SLURM or Open MPI for "
+                        "auto-detection)")
     c.add_argument("--num-processes", dest="num_processes", type=int, default=None,
                    help="Total process count for multi-host execution")
     c.add_argument("--process-id", dest="process_id", type=int, default=None,
@@ -204,7 +207,7 @@ def run_call_cmd(cfg: CallConfig) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     print(f"bronko-tpu v{consts.BRONKO_TPU_VERSION}")
-    print("TPU-native rebuild of the bronko viral variant caller\n")
+    print("Accelerator rebuild of the bronko viral variant caller\n")
     t0 = time.time()
     args = build_parser().parse_args(argv)
     setup_logging(args.debug, args.verbose)

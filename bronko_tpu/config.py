@@ -102,18 +102,18 @@ class CallConfig:
     threads: int = 4
     debug: bool = False
     verbose: bool = False
-    # TPU-specific knobs (no reference equivalent)
+    # device knobs (no reference equivalent)
     batch_size: int = 1 << 18
     chunk_reads: int = 1 << 18
-    counter: str = "auto"  # 'auto' | 'host' (C++ hash) | 'device' (TPU sort)
+    counter: str = "auto"  # 'auto' | 'host' (C++ hash) | 'device' (sort)
     mesh: str | None = None  # 'DxG' device mesh, e.g. '4x2' = 4-way data
     #  parallel x 2-way genome index sharding for the WHOLE mapping
     #  pipeline (tally pass 1 + pileup pass 2); None = 1 device
     profile_dir: str | None = None  # write a jax.profiler trace here
     device_build: str = "auto"  # 'auto'|'on'|'off': derive the device index
-    #  on-chip from ~1MB of genome codes instead of uploading the host-built
-    #  arrays (auto = on for TPU backends; forced off under --mesh, whose
-    #  splitter needs the host arrays)
+    #  on the device from the 2-bit genome codes instead of uploading the
+    #  host-built arrays (auto = on for every backend but the CPU; forced
+    #  off under --mesh, whose splitter needs the host arrays)
     shard_samples: bool = False  # multi-host cohort mode: PARTITION samples
     #  round-robin across processes (each runs the single-host pipeline on
     #  its share and writes its own VCF/pileup; summaries gather to every

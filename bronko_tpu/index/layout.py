@@ -77,9 +77,9 @@ class DeviceIndex:
     fid_grouped: bool = False
     file_bases: np.ndarray | None = None  # (G,) global offset of each file
     # pass-2 narrow postings: genome-LOCAL scatter position and fold bits in
-    # one int32 (lpos<<6 | canonical<<5 | idx). 64-bit random gathers cost
-    # ~1.4x int32 on this chip (tools: 81 ms vs 57 ms per 1M lanes), and
-    # pass 2 needs neither file_id nor global positions. Present when every
+    # one int32 (lpos<<6 | canonical<<5 | idx): half the bytes of each
+    # random posting gather, and pass 2 needs neither file_id nor global
+    # positions. Present when every
     # genome is < 2^25 bp (any viral panel); None otherwise.
     postings_local32: jnp.ndarray | None = None
     # fused-dispatch budget state: rolling max of observed pass-2
@@ -92,7 +92,7 @@ class DeviceIndex:
     _glen2_dev: object = None    # (G,) f64 2*genome_lens, device-cached
     _fbases_dev: object = None   # (G,) int32 file_bases, device-cached
     # deferred sub-index constructor: the per-genome sub-index duplicates
-    # the whole posting space (measured ~half of a 709MB 32-strain device
+    # the whole posting space (about half of a 32-strain panel's device
     # image), and the probe-reuse pass-2 never touches it — so when a
     # histogram exists it is built only if a fallback path asks
     _subindex_builder: object = None
@@ -204,7 +204,7 @@ def build_device_index(index: BronkoIndex) -> DeviceIndex:
         # tally pass gathers ceil(G/8) words per bucket query instead of
         # expanding every posting lane (which scales with the panel size;
         # for a 300-strain panel of near-identical genomes the flat path
-        # would pay ~300 lanes per hit bucket). Guarded to <=2 GB of HBM;
+        # would pay ~300 lanes per hit bucket). Guarded to <=2 GB of device memory;
         # beyond that the flat path with overflow retry takes over.
         h = np.zeros((U, G), np.int64)
         np.add.at(h, (bucket_of_post, file_id), 1)

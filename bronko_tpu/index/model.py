@@ -1,6 +1,6 @@
 """Index data model.
 
-TPU-first re-design of the reference's BronkoIndex (build.rs:23-60): instead
+Device-first re-design of the reference's BronkoIndex (build.rs:23-60): instead
 of a hashmap of posting vectors, the index is a set of dense, sorted arrays
 (CSR) that device-put directly:
 

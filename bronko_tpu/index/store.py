@@ -1,4 +1,4 @@
-""".bkdb persistence for the TPU index.
+""".bkdb persistence for the bucket index.
 
 The reference serializes its hashmap with bincode (build.rs:122-143); our
 .bkdb is an NPZ container of the dense CSR arrays plus JSON metadata — it

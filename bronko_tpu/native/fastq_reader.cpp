@@ -1,6 +1,6 @@
 // Native FASTQ chunk reader: gzip/plain FASTQ -> padded 2-bit-code matrices.
 //
-// TPU-native replacement for the reference's external KMC3 I/O front end
+// Native replacement for the reference's external KMC3 I/O front end
 // (call.rs:1152-1226): the heavy host work (decompress, line split, base
 // encode) happens here in C++, producing device-ready (R, L) uint8 code
 // matrices (0..3 = ACGT upper/lower, 4 = anything else / padding) plus

@@ -3,13 +3,14 @@
 The reference shells out to KMC3 (call.rs:1152-1226) with `-b -ci<min>
 -cs1000000`: non-canonical counting, k-mers containing non-ACGT skipped,
 counts floored at ci and capped at cs. Here the counter is an on-device
-sort-based pipeline:
+sort-based pipeline (`--counter device`; the host C++ counter in
+io/native.py is the default):
 
   reads (R, L) base codes --window-pack--> (R, W) uint64 k-mers + validity
   --sort--> boundaries --segment-sum--> (unique k-mer, count) pairs
 
-Sorting is the TPU-friendly substitute for a hash table: XLA's sort keeps
-the MXU-adjacent VPU busy and needs no dynamic memory. Chunks of reads are
+Sorting stands in for a hash table: it needs no dynamic memory and no
+scatter. Chunks of reads are
 counted on device and merged on host (sample-level counts must be global
 before the ci filter is applied, so per-chunk results stay unfiltered).
 
@@ -20,14 +21,11 @@ total reads, total (valid) k-mers, unique k-mers, unique counted k-mers.
 from __future__ import annotations
 
 import functools
-import logging
 from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-log = logging.getLogger("bronko")
 
 SENTINEL = jnp.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -40,7 +38,19 @@ class CountStats:
     unique_counted_kmers: int = 0
 
 
+# jax.named_scope of the window pack (_pack_windows_xla)
+WINDOW_PACK_SCOPE = "window_pack"
+
+
 def _pack_windows_xla(codes, lengths, k: int):
+    """(R, L) base codes -> ((R, W) uint64 k-mer windows, (R, W) validity),
+    W = L - k + 1: a window is valid when it lies inside its read and holds
+    no code >= 4."""
+    with jax.named_scope(WINDOW_PACK_SCOPE):
+        return _pack_windows_body(codes, lengths, k)
+
+
+def _pack_windows_body(codes, lengths, k: int):
     R, L = codes.shape
     W = L - k + 1
     c64 = codes.astype(jnp.uint64)
@@ -54,15 +64,14 @@ def _pack_windows_xla(codes, lengths, k: int):
     return acc, (nbad == 0) & in_read
 
 
-@functools.partial(jax.jit, static_argnames=("k", "use_pallas"))
-def extract_and_count_chunk(codes, lengths, k: int, use_pallas: bool = False):
+@functools.partial(jax.jit, static_argnames=("k",))
+def extract_and_count_chunk(codes, lengths, k: int):
     """Count k-mers in one padded read chunk.
 
     Args:
       codes: (R, L) uint8 base codes, 0..3 = ACGT, >=4 = invalid/padding.
       lengths: (R,) int32 true read lengths.
       k: k-mer size (static).
-      use_pallas: fuse the window pack in a Pallas VMEM kernel (TPU).
 
     Returns:
       ukmers: (N,) uint64 — rank-indexed unique k-mers (tail is sentinel)
@@ -70,19 +79,13 @@ def extract_and_count_chunk(codes, lengths, k: int, use_pallas: bool = False):
       n_unique: () int32 — number of valid unique k-mers
       n_total: () int32 — number of valid k-mer instances
     """
-    if use_pallas:
-        from bronko_tpu.ops.pallas_pack import pack_windows_pallas
-
-        acc, valid = pack_windows_pallas(codes, lengths, k)
-    else:
-        acc, valid = _pack_windows_xla(codes, lengths, k)
+    acc, valid = _pack_windows_xla(codes, lengths, k)
 
     flat = jnp.where(valid, acc, SENTINEL).reshape(-1)
     n_total = valid.sum(dtype=jnp.int32)
 
     # scatter-free segment counting: counts are next-boundary deltas, and
     # compaction is a stable sort that floats boundaries to the front
-    # (64-bit scatters are pathologically slow on TPU)
     s = jnp.sort(flat)
     N = s.shape[0]
     idx = jnp.arange(N, dtype=jnp.int32)
@@ -112,33 +115,14 @@ class KmerCounter:
         self._chunks: list[tuple[np.ndarray, np.ndarray]] = []
         self.stats = CountStats()
 
-    _pallas_ok: bool | None = None
-
     def add_chunk(self, codes: np.ndarray, lengths: np.ndarray, n_reads: int) -> None:
         if codes.shape[1] < self.k:
             # every read shorter than k: zero k-mers, like KMC (a negative
             # window count would fail the jit trace)
             self.stats.total_reads += n_reads
             return
-        if KmerCounter._pallas_ok is None:
-            KmerCounter._pallas_ok = jax.default_backend() == "tpu"
-        try:
-            ukmers, ucounts, n_unique, n_total = extract_and_count_chunk(
-                jnp.asarray(codes), jnp.asarray(lengths), self.k,
-                use_pallas=KmerCounter._pallas_ok,
-            )
-        except Exception as e:  # noqa: BLE001 — Mosaic unavailable/rejects
-            if not KmerCounter._pallas_ok:
-                raise
-            # retry without the Pallas pack; if the error was transient
-            # (relay contention, OOM) the retry surfaces it instead. The
-            # disable is deliberate and process-wide only after a retry
-            # SUCCEEDS, i.e. the failure was Pallas-specific.
-            ukmers, ucounts, n_unique, n_total = extract_and_count_chunk(
-                jnp.asarray(codes), jnp.asarray(lengths), self.k, use_pallas=False,
-            )
-            log.warning("Pallas window-pack failed (%s); using XLA pack", e)
-            KmerCounter._pallas_ok = False
+        ukmers, ucounts, n_unique, n_total = extract_and_count_chunk(
+            jnp.asarray(codes), jnp.asarray(lengths), self.k)
         n_unique = int(n_unique)
         self.stats.total_reads += n_reads
         self.stats.total_kmers += int(n_total)

@@ -1,7 +1,7 @@
 """Multi-host execution over jax.distributed (SURVEY.md §5 distributed plan).
 
-The reference is single-host shared memory (rayon + DashMap); the TPU-native
-scale-out is multi-controller SPMD: every host runs the same program,
+The reference is single-host shared memory (rayon + DashMap); the scale-out
+here is multi-controller SPMD: every host runs the same program,
 `jax.distributed.initialize` wires the processes into one runtime, and the
 ('data','genome') mesh spans the global device set. The engine's sharded
 steps (parallel/pipeline.py) are written against named mesh axes, so the
@@ -11,9 +11,12 @@ array placement differs — host-local numpy becomes a global array via
 its own full copy, so no cross-host data movement happens at placement
 time).
 
-On TPU pods, `initialize()` with no arguments auto-detects the topology.
-For CPU simulation and manual clusters, pass coordinator/num_processes/
-process_id (CLI: --coordinator/--num-processes/--process-id).
+Under SLURM or Open MPI, `initialize()` with no arguments auto-detects the
+cluster and gives each process the GPU of its local rank. For manual
+clusters and CPU simulation, pass coordinator/num_processes/process_id
+(CLI: --coordinator/--num-processes/--process-id); each process then
+opens only GPU `process_id % <GPUs on its host>` (local_gpu_ids), so
+ranks that share a host must be numbered consecutively.
 
 File outputs are written by process 0 only; every process computes the same
 replicated results (tallies, pileups are psum/pmax-merged to all replicas),
@@ -28,6 +31,38 @@ log = logging.getLogger("bronko")
 
 _initialized = False
 
+# environment variables of the cluster launchers whose topology
+# jax.distributed.initialize() detects without arguments
+CLUSTER_MARKERS = ("JAX_COORDINATOR_ADDRESS", "SLURM_JOB_NUM_NODES",
+                   "OMPI_COMM_WORLD_SIZE")
+
+
+def _local_gpu_count() -> int:
+    """GPUs this process may open, counted without initializing a JAX
+    backend (which must not happen before jax.distributed.initialize)."""
+    import os
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return len([d for d in visible.split(",") if d.strip()])
+    try:
+        return len(os.listdir("/proc/driver/nvidia/gpus"))
+    except OSError:
+        return 0
+
+
+def local_gpu_ids(process_id: int) -> list[int] | None:
+    """One GPU per process: GPU `process_id % local count`. A JAX process
+    reserves most of every card it opens, so processes sharing a host must
+    not all open all of its cards. None (JAX's default) when the host has
+    no GPU or JAX_LOCAL_DEVICE_IDS already says which cards to open."""
+    import os
+
+    n = _local_gpu_count()
+    if n == 0 or os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        return None
+    return [process_id % n]
+
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
@@ -36,7 +71,7 @@ def init_distributed(coordinator: str | None = None,
 
     Returns True when a multi-process runtime is active after the call.
     With all-None arguments this only auto-initializes on environments
-    JAX can detect (TPU pods, cluster env vars); on a plain host it stays
+    JAX can detect (cluster env vars); on a plain host it stays
     single-process."""
     global _initialized
     import jax
@@ -50,17 +85,15 @@ def init_distributed(coordinator: str | None = None,
         # alone AND writing outputs (all think they are process 0)
         import os
 
-        markers = ("JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                   "TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID",
-                   "SLURM_JOB_NUM_NODES", "OMPI_COMM_WORLD_SIZE")
-        if not any(os.environ.get(m) for m in markers):
+        if not any(os.environ.get(m) for m in CLUSTER_MARKERS):
             return False  # plain single-process run; nothing to do
-        jax.distributed.initialize()  # env/TPU-pod auto-detection
+        jax.distributed.initialize()  # cluster env auto-detection
     else:
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_gpu_ids(process_id),
         )
     _initialized = True
     log.info("jax.distributed: process %d/%d, %d local + %d global devices",

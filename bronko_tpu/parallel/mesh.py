@@ -4,11 +4,11 @@ Two logical axes:
   * 'data'   — read k-mer batches are sharded across this axis (the
     reference's rayon chunk fan-out, call.rs:1279-1281, becomes SPMD).
   * 'genome' — the posting/pileup space is range-partitioned across this
-    axis, scaling the strain database beyond one chip's HBM.
+    axis, scaling the strain database beyond one device's memory.
 
 Cross-axis collectives: pileup count planes psum over 'data', depth planes
 pmax over 'data' (the thread-local-then-merge pattern of call.rs:1420-1431
-becomes XLA collectives over ICI); per-(kmer, genome) hit counts psum over
+becomes XLA collectives); per-(kmer, genome) hit counts psum over
 'genome' before the perfect/variant/unique classification.
 """
 

@@ -1,4 +1,4 @@
-"""Memory telemetry: host RSS + device HBM, logged at stage boundaries
+"""Memory telemetry: host RSS + device memory, logged at stage boundaries
 (the reference logs physical RSS via memory-stats, util.rs:52-72)."""
 
 from __future__ import annotations

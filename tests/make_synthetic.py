@@ -63,6 +63,78 @@ def make_sample(
     return reads, alts
 
 
+_COMP_CODES = np.zeros(256, np.uint8)
+for _a, _b in COMP.items():
+    _COMP_CODES[_a] = _b
+
+
+def make_reads(genome: bytes, rng, n: int, read_len: int,
+               planted: dict[int, tuple[int, float]],
+               error_rate: float = 0.0) -> np.ndarray:
+    """Vectorized read sampler: (n, read_len) uint8 ASCII bases.
+
+    Reads start uniformly; a read covering planted position p carries the
+    alt base a with probability f (planted[p] = (a, f)); every base is
+    then substituted with probability error_rate; half the reads are
+    reverse-complemented."""
+    g = np.frombuffer(genome, np.uint8)
+    starts = rng.integers(0, len(g) - read_len + 1, n)
+    reads = g[starts[:, None] + np.arange(read_len)]
+    for p, (alt, frac) in sorted(planted.items()):
+        hit = (starts <= p) & (p < starts + read_len) & (rng.random(n) < frac)
+        reads[hit, p - starts[hit]] = alt
+    if error_rate > 0:
+        err = rng.random(reads.shape) < error_rate
+        code = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), reads[err])
+        shift = rng.integers(1, 4, code.size)
+        reads[err] = np.frombuffer(b"ACGT", np.uint8)[(code + shift) % 4]
+    flip = rng.random(n) < 0.5
+    reads[flip] = _COMP_CODES[reads[flip, ::-1]]
+    return reads
+
+
+def plant_variants(genome: bytes, rng, n_major: int, n_minor: int,
+                   margin: int = 1000) -> dict[int, tuple[int, float]]:
+    """Major (fraction 0.9) and minor (0.05-0.25) SNVs at random positions
+    at least `margin` bp from either end: {pos: (alt base, fraction)}."""
+    L = len(genome)
+    out = {}
+    for p in rng.integers(margin, L - margin, n_major):
+        out[int(p)] = (mutate(genome[p], rng), 0.9)
+    for p, f in zip(rng.integers(margin, L - margin, n_minor),
+                    0.05 + 0.2 * rng.random(n_minor)):
+        out.setdefault(int(p), (mutate(genome[p], rng), float(f)))
+    return out
+
+
+def write_fastq_array(path: str, reads: np.ndarray,
+                      compresslevel: int = 1) -> None:
+    """Write an (n, L) uint8 read matrix as (gzipped) FASTQ."""
+    qual = b"I" * reads.shape[1]
+    text = b"".join(b"@read%d\n%s\n+\n%s\n" % (i, r.tobytes(), qual)
+                    for i, r in enumerate(reads))
+    if path.endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=compresslevel) as fh:
+            fh.write(text)
+    else:
+        with open(path, "wb") as fh:
+            fh.write(text)
+
+
+def write_pairs(path1: str, path2: str, genome: bytes, rng, n_pairs: int,
+                read_len: int, insert: int,
+                planted: dict[int, tuple[int, float]],
+                error_rate: float = 0.0) -> None:
+    """Paired-end reads: fragments of `insert` bp (strand-flipped like
+    make_reads); mate 1 is the fragment's first read_len bases, mate 2 the
+    reverse complement of its last read_len bases."""
+    frags = make_reads(genome, rng, n_pairs, insert, planted, error_rate)
+    r1 = np.ascontiguousarray(frags[:, :read_len])
+    r2 = _COMP_CODES[frags[:, ::-1][:, :read_len]]
+    write_fastq_array(path1, r1)
+    write_fastq_array(path2, r2)
+
+
 def write_fasta(path: str, name: str, seq: bytes) -> None:
     with open(path, "w") as fh:
         fh.write(f">{name}\n")

@@ -9,7 +9,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from tests.oracle.lcb_oracle import (
+from .lcb_oracle import (
     assign_buckets, canonical_kmer_u64, kmer_to_u64,
 )
 

@@ -639,9 +639,9 @@ def test_engine_equals_oracle_mesh_bsplit(tmp_path):
 
 def test_engine_equals_oracle_with_merge_expand(tmp_path, monkeypatch):
     """Full engine -> VCF with the merge-based _expand_lanes FORCED (the
-    TPU-default owner derivation; CPU defaults to the scatter form, so
-    without this the production TPU expand path had only unit-level CPU
-    coverage). Byte-equality against the composed scalar oracle."""
+    CPU defaults to the scatter form, so without this the merge form had
+    only unit-level coverage). Byte-equality against the composed scalar
+    oracle."""
     import bronko_tpu.ops.map as m
 
     monkeypatch.setenv("BRONKO_EXPAND_MERGE", "1")

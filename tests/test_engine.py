@@ -105,7 +105,7 @@ def test_pileup_and_alignment_outputs(synth):
 
 
 def test_device_counter_path(synth):
-    """The TPU-native device counter must produce identical results to the
+    """The on-device sort counter must produce identical results to the
     host C++ counter through the engine."""
     tmp, ref, fq, genome, alts = synth
     out_h = str(tmp / "out_host")
@@ -245,8 +245,8 @@ def test_streaming_single_sample_byte_identical(synth):
 
 def test_batch_streamed_first_byte_identical(synth, tmp_path, monkeypatch):
     """BRONKO_STREAM_FIRST=1 streams the FIRST sample's count->tally on
-    multi-sample cohorts (pipeline-fill cut, opt-in — loses through the
-    high-latency relay, wins on directly-attached hosts); outputs must be
+    multi-sample cohorts (pipeline-fill cut, which loses where a dispatch
+    is slow); outputs must be
     byte-identical to the pure prefetch path (keep_kmer_counts disables
     streaming)."""
     from bronko_tpu.io.native import get_lib
@@ -502,7 +502,7 @@ def test_mesh_more_shards_than_genomes(tmp_path):
 
 
 def test_streamed_probe_budget_cap_byte_identical(synth, tmp_path, monkeypatch):
-    """With the saved-probe HBM cap forced to 1 byte, every streamed
+    """With the saved-probe memory cap forced to 1 byte, every streamed
     partition takes the tally-only path and resolve() re-probes the
     selected genome's sub-index — outputs must stay byte-identical."""
     import bronko_tpu.call.engine as engine

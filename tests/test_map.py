@@ -474,11 +474,11 @@ def test_pileup_u16_export_roundtrip():
 
 
 def test_expand_lanes_merge_equals_scatter():
-    """The merge-based _expand_lanes owner derivation (TPU default; radix
-    single-key sorts) must equal the scatter-max formulation elementwise
-    on randomized CSR range inputs, including zero-length runs, budget
-    overflow tails, and the all-empty case. CPU runs take the scatter
-    form by default, so the merge is FORCED here for coverage."""
+    """The merge-based _expand_lanes owner derivation must equal the
+    scatter-max formulation elementwise on randomized CSR range inputs,
+    including zero-length runs, budget overflow tails, and the all-empty
+    case. CPU runs take the scatter form by default, so the merge is
+    FORCED here for coverage."""
     import os
 
     import bronko_tpu.ops.map as m
@@ -509,16 +509,21 @@ def test_expand_lanes_merge_equals_scatter():
         m._expand_merge_enabled.cache_clear()
 
 
-def test_expand_merge_default_is_backend_gated(monkeypatch):
-    """Unset env: merge only on the TPU backend (comparison sorts make it
-    slower on CPU, and it must not skew the CPU host-baseline)."""
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_expand_merge_default_is_backend_gated(monkeypatch, backend):
+    """Unset env: the scatter form on the CPU and on the GPU (the merge
+    measured slower on both); BRONKO_EXPAND_MERGE=1 forces the merge."""
     import jax
 
     import bronko_tpu.ops.map as m
 
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
     monkeypatch.delenv("BRONKO_EXPAND_MERGE", raising=False)
     m._expand_merge_enabled.cache_clear()
     try:
-        assert m._expand_merge_enabled() == (jax.default_backend() == "tpu")
+        assert m._expand_merge_enabled() is False
+        monkeypatch.setenv("BRONKO_EXPAND_MERGE", "1")
+        m._expand_merge_enabled.cache_clear()
+        assert m._expand_merge_enabled() is True
     finally:
         m._expand_merge_enabled.cache_clear()

@@ -362,8 +362,7 @@ def test_place_batches_deinterleaves_bsplit(tmp_path):
     with k-mer value, so contiguous B/D slices concentrate each device's
     routed queries on a few key chunks — measured 7.7x the equal
     per-(src, dst) share at D=16 on the bench sample, which blew the
-    1.35x routing budget (BENCH_r03's routed proxy rows came back
-    empty from exactly this). Strided slices restore the global spread.
+    1.35x routing budget. Strided slices restore the global spread.
     Checks (a) the permutation semantics, (b) that per-destination
     routing counts on a sorted input fit the engine's 1.35x budget and
     beat the contiguous layout's worst destination, (c) batchwise
@@ -438,8 +437,8 @@ def test_place_batches_deinterleaves_bsplit(tmp_path):
 
 
 def test_route_place_matches_scatter_semantics():
-    """_route_place (monotone gather — the u64 slot scatter measured
-    71 ns/lane on the TPU, tools/bench_routed_ab.py) must reproduce the
+    """_route_place (contiguous copies in place of a u64 slot scatter)
+    must reproduce the
     scattered routing buffer exactly: group d's queries at slots
     [d*C, d*C+cnt), zeros elsewhere, virtual-chunk (invalid) lanes
     never placed, within-budget groups unaffected by an overflowing

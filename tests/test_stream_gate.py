@@ -46,8 +46,8 @@ def _patch_env(monkeypatch, tmp_path, dispatch_s, calib=None,
 
 
 def test_calibration_overrides_latency_proxy(monkeypatch, tmp_path):
-    # relay-class dispatch (35 ms) would proxy to classic, but the
-    # measured calibration says streamed won in this epoch
+    # a slow-dispatch host (35 ms) would proxy to classic, but the
+    # measured calibration says streamed won on this host class
     _patch_env(monkeypatch, tmp_path, 0.035, calib=dict(
         classic_s=0.649, streamed_s=0.530, dispatch_s=0.035, ts=0))
     assert eng._can_stream(_mk_cfg(tmp_path), _mk_dev(), None) is True

@@ -104,10 +104,10 @@ def main() -> int:
         else:
             genomes, reads = make_synthetic(tmp)
 
-        env = dict(os.environ, BRONKO_PLATFORM=os.environ.get("BRONKO_PLATFORM", "cpu"),
+        env = dict(os.environ, JAX_PLATFORMS=os.environ.get("JAX_PLATFORMS", "cpu"),
                    PYTHONPATH=REPO)
         out_ref = os.path.join(tmp, "out_ref")
-        out_tpu = os.path.join(tmp, "out_tpu")
+        out_ours = os.path.join(tmp, "out_ours")
 
         # build + call with the reference binary
         r = run([bronko, "call", "-g", *genomes, "-r", *reads,
@@ -117,13 +117,13 @@ def main() -> int:
             return 2
         # the same flags through bronko-tpu
         r = run([sys.executable, "-m", "bronko_tpu", "call", "-g", *genomes,
-                 "-r", *reads, "-k", str(args.kmer), "-o", out_tpu, "--pileup"],
+                 "-r", *reads, "-k", str(args.kmer), "-o", out_ours, "--pileup"],
                 cwd=tmp, env=env)
         if r.returncode != 0:
             print(f"bronko-tpu pipeline failed ({r.returncode}):\n{r.stderr[-2000:]}")
             return 2
 
-        bad = diff_trees(out_ref, out_tpu)
+        bad = diff_trees(out_ref, out_ours)
         if bad:
             print("DIFFERS:")
             for b in bad:
@@ -131,7 +131,7 @@ def main() -> int:
             print(f"work dir kept at {tmp}")
             return 1
         print(f"IDENTICAL: every output file byte-equal across "
-              f"{len(os.listdir(out_tpu))} artifacts")
+              f"{len(os.listdir(out_ours))} artifacts")
         return 0
     finally:
         if not args.keep and os.path.isdir(tmp):
